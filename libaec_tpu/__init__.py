@@ -1,6 +1,6 @@
-"""libaec_tpu: a TPU-native lossless CCSDS 121.0-B-2 / SZIP codec.
+"""libaec_tpu: a lossless CCSDS 121.0-B-2 / SZIP codec in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of libaec
+A from-scratch JAX/XLA re-design of the capabilities of libaec
 (Golomb-Rice adaptive entropy coding): data-parallel encode over RSI batches,
 two-phase indexed decode, bit-exact interoperability with the reference
 bitstreams, plus the szlib compatibility surface and a CLI.

@@ -1,9 +1,11 @@
 """Array-backend shim: the codec core runs identically under numpy (host
-fallback, small buffers, tests) and jax.numpy (jit/TPU path).
+fallback, small buffers, tests) and jax.numpy (jit/device path).
 
 Only the handful of primitives that differ between the two APIs live here;
 everything else in ops/ is written against ``B.xp``.
 """
+import os as _os
+
 import numpy as _np
 
 
@@ -46,30 +48,40 @@ class NumpyBackend:
         return P
 
 
+# Fallback persistent-compilation-cache directory: one fixed path inside
+# the checkout (listed in .gitignore).  The path is part of the cache key,
+# so it must not move between runs.
+DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def configure_compile_cache():
+    """Point JAX's persistent compilation cache at its directory.
+
+    When JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing
+    is set here; otherwise the cache lives at DEFAULT_CACHE_DIR.  Returns
+    the directory in use.  Encode/decode programs specialise on (config,
+    chunk shape), so caching across processes amortises their compiles."""
+    import jax
+
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    env = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    return DEFAULT_CACHE_DIR
+
+
 class JaxBackend:
     name = "jax"
 
     def __init__(self):
-        import os
-
         import jax
         import jax.numpy as jnp
 
-        # Persistent compilation cache: encode/decode pipelines specialise
-        # on (config, chunk shape); caching across processes amortises the
-        # (remote) compile cost for repeated tool/test/bench invocations.
-        cache_dir = os.environ.get(
-            "LIBAEC_TPU_JAX_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache",
-                         f"libaec_tpu_jax_{jax.default_backend()}"),
-        )
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        except Exception:
-            pass
-
+        configure_compile_cache()
         self._jax = jax
         self.xp = jnp
 
@@ -90,8 +102,8 @@ class JaxBackend:
 
     def prefix_compose(self, maps):
         # Hand-rolled log-doubling (Hillis-Steele) instead of
-        # lax.associative_scan: the library scan's internal odd/even
-        # concatenates trigger pathological Mosaic compile times at large N.
+        # lax.associative_scan, whose odd/even concatenates compile slowly
+        # at large N.
         jnp = self.xp
         n = maps.shape[0]
         P = maps
@@ -107,6 +119,15 @@ class JaxBackend:
 
 NUMPY = NumpyBackend()
 _JAX = None
+
+
+def on_accelerator():
+    """Whether JAX's default device is an accelerator (not the CPU); the
+    device routes of encode and decode run only then.  A JAX that fails to
+    start raises here."""
+    import jax
+
+    return jax.default_backend() != "cpu"
 
 
 def jax_backend():

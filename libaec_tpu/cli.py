@@ -5,8 +5,8 @@
         [-r blocks] [-s] [-t] SOURCE DEST
 
 Defaults match the reference: 8 bits/sample, block 8, rsi 2, preprocessing
-on.  Encode uses the TPU backend for large inputs (numpy below a threshold);
-decode goes through the native scanner path.
+on.  Large inputs encode and decode on the JAX device when it is an
+accelerator; everything else runs the native codec.
 """
 import sys
 
@@ -41,9 +41,6 @@ OPTIONS
 \t-s\t\tsamples are signed. Default is unsigned
 \t-t\t\tuse restricted set of code options
 """
-
-# TPU backend pays a per-shape compile cost; route small files to numpy.
-_JAX_THRESHOLD_BYTES = 1 << 22
 
 
 def main(argv=None):
@@ -127,16 +124,7 @@ def main(argv=None):
         return _decode_to_file(data, cfg, outfn,
                                rsis_per_chunk=rsis_per_chunk)
     else:
-        backend = None
-        if len(data) >= _JAX_THRESHOLD_BYTES:
-            try:
-                from .backend import jax_backend
-
-                backend = jax_backend()
-            except Exception:
-                backend = None
-        out = encode_buffer(data, cfg, backend=backend,
-                            rsis_per_chunk=rsis_per_chunk)
+        out = encode_buffer(data, cfg, rsis_per_chunk=rsis_per_chunk)
 
     with open(outfn, "wb") as f:
         f.write(out)
@@ -150,7 +138,7 @@ def _decode_to_file(data, cfg, outfn, rsis_per_chunk=None):
     (aec.c:191-219), so no output-size bound is involved.
 
     Large streams route phase 2 to the device (decode.decode_buffer_tpu
-    with a file part_sink) when the jax backend is a TPU -- same policy as
+    with a file part_sink) when JAX has an accelerator -- same policy as
     decode_buffer_status."""
     from . import native
     from .decode import _device_decode_wanted, decode_buffer_tpu

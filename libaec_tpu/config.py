@@ -3,7 +3,7 @@
 Derives the same per-stream parameters the reference computes in
 aec_encode_init (/root/reference/src/encode.c:773-907) and aec_decode_init
 (/root/reference/src/decode.c:694-795): id_len, bytes_per_sample, xmin/xmax,
-kmax. These are *static* (shape-defining) values: every jitted TPU pipeline
+kmax. These are *static* (shape-defining) values: every jitted device pipeline
 specialises on a Config instance.
 """
 from dataclasses import dataclass
@@ -20,7 +20,7 @@ from .constants import (
 )
 
 # Width of the per-block k-candidate tables. kmax <= 2^5 - 3 = 29, so 32
-# candidate slots always suffice (and map nicely onto a TPU lane group).
+# candidate slots always suffice.
 KW = 32
 
 

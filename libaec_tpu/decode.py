@@ -7,7 +7,7 @@ two-phase:
   phase 1 (host, native C++): sequential structural scan
           (native.scan_blocks) -- GB/s-class, lengths + per-block payload
           records only, no sample reconstruction;
-  phase 2 (TPU): data-parallel entropy decode of every block payload
+  phase 2 (device): data-parallel entropy decode of every block payload
           (ops/bitunpack.py) + lane-parallel inverse predictor
           (ops/unpredict.py) + on-device byte layout.
 
@@ -29,19 +29,22 @@ from .constants import (
 
 
 # Streams whose decoded size reaches this run phase 2 on the device by
-# default (when the jax backend is a TPU); below it the per-call dispatch
-# cost outweighs the device's bandwidth advantage.
-DEVICE_DECODE_MIN_BYTES = 16 << 20
+# default (when JAX has an accelerator); below it the native CPU decoder
+# is as fast or faster.  Measured on an H100 (700 W) host, bench config,
+# warm, median of 5 alternating rounds: at 256 MiB the two are within
+# noise (device 643 vs native 647 MiB/s, 2 of 5 rounds); from 16 to 128
+# MiB native won at least 3 of 5 rounds at every size.
+DEVICE_DECODE_MIN_BYTES = 256 << 20
 
 
 def _device_decode_wanted(out_size):
     """Routing policy for the one-shot decode surface.
 
     LIBAEC_TPU_DECODE=device forces the device path, =cpu forces the
-    native/numpy path; default ("auto") picks the device for >=16 MiB
-    outputs when the jax backend is a TPU.  The fastest decoder in the
-    codebase (8+ GiB/s phase 2) must be what users get by default on real
-    TPU hosts."""
+    native/numpy path; default ("auto") picks the device for outputs of at
+    least DEVICE_DECODE_MIN_BYTES when JAX's default device is an
+    accelerator and the native library (the device path's phase-1 scan)
+    is built.  A JAX that fails to start raises here."""
     import os
 
     mode = os.environ.get("LIBAEC_TPU_DECODE", "auto")
@@ -49,14 +52,11 @@ def _device_decode_wanted(out_size):
         return False
     if mode == "device":
         return True
-    if out_size < DEVICE_DECODE_MIN_BYTES:
+    if out_size < DEVICE_DECODE_MIN_BYTES or native.get_lib() is None:
         return False
-    try:
-        import jax
+    from .backend import on_accelerator
 
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+    return on_accelerator()
 
 
 def _decode_cpu_status(data, cfg: Config, out_size):
@@ -72,10 +72,9 @@ def decode_buffer_status(data, cfg: Config, out_size):
     (aec_buffer_decode parity, decode.c:843-854).
 
     Large streams route to the two-phase device decoder
-    (decode_buffer_tpu) when the jax backend is a TPU; the CPU path
-    remains the fallback and the small-stream default (see
-    _device_decode_wanted)."""
-    if _device_decode_wanted(out_size) and native.get_lib() is not None:
+    (decode_buffer_tpu) when JAX has an accelerator; the CPU path is the
+    small-stream default (see _device_decode_wanted)."""
+    if _device_decode_wanted(out_size):
         return decode_buffer_tpu(data, cfg, out_size)
     return _decode_cpu_status(data, cfg, out_size)
 
@@ -101,52 +100,22 @@ def _jax_decode_fn(cfg, n_rsi):
     key = (cfg, n_rsi)
     fn = _DEC_JIT_CACHE.get(key)
     if fn is None:
-        import os
-
         import jax
 
-        from .kernels import decode_fused_pallas, decode_pallas, \
-            unpredict_pallas
         from .ops import bitunpack
         from .ops.unpredict import samples_to_bytes_device, unpredict_rsis
 
         S = cfg.samples_per_rsi
-        pallas_ok = (
-            jax.default_backend() == "tpu"
-            and not os.environ.get("LIBAEC_TPU_NO_PALLAS")
-        )
-        use_pallas = pallas_ok and decode_pallas.kernel_supported(cfg)
-        # the one-kernel decode measured SLOWER than the two-kernel
-        # pipeline at every window width (kernels/decode_fused_pallas.py
-        # docstring has the numbers); opt-in for re-testing only
-        use_one = (pallas_ok
-                   and os.environ.get("LIBAEC_TPU_FUSED_DECODE")
-                   and decode_fused_pallas.fused_supported(cfg, n_rsi))
-        use_fused = pallas_ok and unpredict_pallas.fused_supported(
-            cfg, n_rsi)
-        use_up_pallas = pallas_ok and unpredict_pallas.kernel_supported(
-            cfg, n_rsi)
 
+        # named scopes label the stages in profiler traces
         def run(win, fs_bit, lsb_rel, meta, ref_sample):
-            if use_one:
-                # the whole decode in ONE kernel -- payload parse,
-                # inverse predictor and byte layout -- with no [NB, bs]
-                # delta intermediate through HBM
-                return decode_fused_pallas.decode_unpredict_swizzle_pallas(
-                    cfg, win, fs_bit, lsb_rel, meta, ref_sample,
-                    n_rsi=n_rsi)
-            deltas = bitunpack.decode_blocks(
-                cfg, win, fs_bit, lsb_rel, meta, ref_sample,
-                use_pallas=use_pallas)
-            d = deltas.reshape(n_rsi, S)
-            if use_fused:
-                # inverse predictor + byte layout in one kernel, natural
-                # layout end to end: the output IS the stream's u32 words
-                return unpredict_pallas.unpredict_swizzle_rsis_pallas(
-                    cfg, d)
-            samples = (unpredict_pallas.unpredict_rsis_pallas(cfg, d)
-                       if use_up_pallas else unpredict_rsis(cfg, d))
-            return samples_to_bytes_device(cfg, samples.reshape(-1))
+            with jax.named_scope("decode_parse"):
+                deltas = bitunpack.decode_blocks(
+                    cfg, win, fs_bit, lsb_rel, meta, ref_sample)
+            with jax.named_scope("decode_unpredict"):
+                samples = unpredict_rsis(cfg, deltas.reshape(n_rsi, S))
+            with jax.named_scope("decode_layout"):
+                return samples_to_bytes_device(cfg, samples.reshape(-1))
 
         fn = jax.jit(run)
         _DEC_JIT_CACHE[key] = fn
@@ -173,7 +142,7 @@ def scan_record_arrays(recs):
 # config) covers an uncompressed payload, but typical data's largest
 # payload is a split block of ~bs*(k+2) bits -- 4-8 words.  Sizing the
 # windows from the chunk's ACTUAL max span cuts the fill memcpys, the
-# H2D staging and the device kernel's VMEM traffic by the same factor;
+# H2D staging and the device parse's memory traffic by the same factor;
 # bucketing keeps the set of compiled kernel shapes small.
 WF_BUCKETS = (6, 10, 18)
 
@@ -240,12 +209,16 @@ def decode_buffer_tpu(data, cfg: Config, out_size, chunk_rsis=None,
 
     Phase 1 (native.scan_blocks): structural scan -> per-block payload
     records.  Phase 2 (jax, ops/bitunpack.py): all block payloads decode in
-    parallel on the VPU (FS rank-select, LSB field gathers, SE unpairing,
-    zero fills), then the lane-parallel inverse predictor
-    (ops/unpredict.py) and the byte layout, all on device.  The serial core
-    finishes any tail the scan could not validate, preserving the
-    reference's truncation/error semantics (decode.c:818-825) bit-exactly.
+    parallel (FS rank-select, LSB field gathers, SE unpairing, zero
+    fills), then the lane-parallel inverse predictor (ops/unpredict.py)
+    and the byte layout, all on device.  The serial core finishes any tail
+    the scan could not validate, preserving the reference's
+    truncation/error semantics (decode.c:818-825) bit-exactly.
+
+    Phase 1 needs the native library: without it this raises
+    RuntimeError rather than quietly decoding on the CPU.
     """
+    _require_native()
     data = bytes(data)
     bsz = cfg.bytes_per_sample
     S = cfg.samples_per_rsi
@@ -258,7 +231,7 @@ def decode_buffer_tpu(data, cfg: Config, out_size, chunk_rsis=None,
 
     # The scan is resumable (start_bit), so it runs in device-chunk-sized
     # slices with the device dispatch issued between slices: jax dispatch
-    # is asynchronous, so the TPU decodes chunk i while the host scans
+    # is asynchronous, so the device decodes chunk i while the host scans
     # chunk i+1.  This also bounds host record memory to one chunk.
     from concurrent.futures import ThreadPoolExecutor
 
@@ -278,9 +251,7 @@ def decode_buffer_tpu(data, cfg: Config, out_size, chunk_rsis=None,
     fetch_futs = []
 
     def fetch(dev_out, cnt, arena, wf_b, win_buf):
-        # the fused swizzle kernel returns [n_rsi, words]; flatten
-        # before the byte slice or a padded chunk is never truncated
-        by = np.asarray(dev_out).ravel().view(np.uint8)
+        by = np.asarray(dev_out).view(np.uint8)
         if arena is not None:
             free_arenas.append(arena)
         if win_buf is not None:
@@ -343,20 +314,10 @@ def decode_buffer_tpu(data, cfg: Config, out_size, chunk_rsis=None,
     tail_bit = 0
     while n_rsis < want_rsis:
         ask = min(chunk_rsis, want_rsis - n_rsis)
-        arena = free_arenas.pop() if free_arenas else (
-            native.ScanArena(chunk_rsis * cfg.rsi, 0)
-            if native.get_lib() is not None else None)
-        res = native.scan_blocks(data, ask, max_fs, cfg, wf=0,
-                                 start_bit=tail_bit, arena=arena)
-        if res is None:  # no native library: only possible on first slice
-            fetch_pool.shutdown()
-            fill_pool.shutdown()
-            status, out = _decode_cpu_status(data, cfg, out_size)
-            if part_sink is not None:
-                part_sink(out)
-                return status, b""
-            return status, out
-        recs, cnt, tail_bit = res
+        arena = free_arenas.pop() if free_arenas else native.ScanArena(
+            chunk_rsis * cfg.rsi, 0)
+        recs, cnt, tail_bit = native.scan_blocks(
+            data, ask, max_fs, cfg, wf=0, start_bit=tail_bit, arena=arena)
         if cnt == 0:
             break
         recs = dict(recs)
@@ -377,19 +338,20 @@ def decode_buffer_tpu(data, cfg: Config, out_size, chunk_rsis=None,
     fetch_pool.shutdown()
 
     done_bytes = n_rsis * S * bsz
-    res = native.decode_tail(data, tail_bit, out_size - done_bytes, cfg)
-    if res is None:
-        status, out = _decode_cpu_status(data, cfg, out_size)
-        if part_sink is not None:
-            part_sink(out)
-            return status, b""
-        return status, out
-    status, tail = res
+    status, tail = native.decode_tail(data, tail_bit, out_size - done_bytes,
+                                      cfg)
     if part_sink is not None:
         if tail:
             part_sink(tail)
         return status, b""
     return status, b"".join(parts) + tail
+
+
+def _require_native():
+    if native.get_lib() is None:
+        raise RuntimeError(
+            "device decode needs the native scan library, which failed to "
+            "build or load")
 
 
 def _next_pow2(n):
@@ -402,8 +364,8 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
 
     The dominant production deployment (HDF5 chunks, SZIP scanlines) is
     many self-contained streams: the serial structural scan -- the
-    whole-stream decode bottleneck, ~4.7 GiB/s/core -- parallelises
-    embarrassingly ACROSS streams while the TPU decodes every stream's
+    whole-stream decode bottleneck -- parallelises
+    embarrassingly ACROSS streams while the device decodes every stream's
     payloads.  Scans run on a host thread pool (the native call releases
     the GIL); the main thread drains scan results in stream order and
     issues the asynchronous device dispatches, so the chip stays busy
@@ -411,7 +373,8 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
 
     datas: sequence of byte buffers; out_sizes: per-stream decoded sizes.
     Returns a list of (status, bytes), each identical to
-    decode_buffer_tpu(datas[i], cfg, out_sizes[i]).
+    decode_buffer_tpu(datas[i], cfg, out_sizes[i]).  Raises RuntimeError
+    without the native library, as decode_buffer_tpu does.
     """
     import os
     from concurrent.futures import ThreadPoolExecutor
@@ -420,6 +383,7 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
     n = len(datas)
     if n == 0:
         return []
+    _require_native()
     bsz = cfg.bytes_per_sample
     S = cfg.samples_per_rsi
     if chunk_rsis is None:
@@ -437,11 +401,8 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
         tail_bit = 0
         while n_rsis < want:
             ask = min(chunk_rsis, want - n_rsis)
-            res = scan_chunk_bucketed(data, ask, cfg, start_bit=tail_bit,
-                                      fill_threads=1)
-            if res is None:
-                return None
-            recs, cnt, tail_bit, _wf = res
+            recs, cnt, tail_bit, _wf = scan_chunk_bucketed(
+                data, ask, cfg, start_bit=tail_bit, fill_threads=1)
             if cnt == 0:
                 break
             chunks.append((scan_record_arrays(recs), cnt))
@@ -460,15 +421,11 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
         while the main thread keeps dispatching later streams)."""
         parts = []
         for dev_out, cnt in pending:
-            by = np.asarray(dev_out).ravel().view(np.uint8)
+            by = np.asarray(dev_out).view(np.uint8)
             parts.append(by[: cnt * S * bsz].tobytes())
         done = n_rsis * S * bsz
-        res = native.decode_tail(datas[i], tail_bit, out_sizes[i] - done,
-                                 cfg)
-        if res is None:
-            results[i] = _decode_cpu_status(datas[i], cfg, out_sizes[i])
-            return
-        status, tail = res
+        status, tail = native.decode_tail(datas[i], tail_bit,
+                                          out_sizes[i] - done, cfg)
         results[i] = (status, b"".join(parts) + tail)
 
     with ThreadPoolExecutor(scan_threads) as pool, \
@@ -476,12 +433,7 @@ def decode_buffers_tpu(datas, cfg: Config, out_sizes, scan_threads=None,
         futures = [pool.submit(scan_stream, i) for i in range(n)]
         fetch_futs = []
         for i, fut in enumerate(futures):
-            res = fut.result()
-            if res is None:  # native library unavailable
-                results[i] = _decode_cpu_status(datas[i], cfg,
-                                                out_sizes[i])
-                continue
-            chunks, tail_bit, n_rsis = res
+            chunks, tail_bit, n_rsis = fut.result()
             pending = []
             for arrs, cnt in chunks:
                 cpad = cnt if cnt == chunk_rsis else _next_pow2(cnt)

@@ -370,7 +370,7 @@ def decode_tail(data, start_bit: int, out_cap: int, cfg):
 
 def decode_deltas(data: bytes, max_samples: int, cfg):
     """Phase-1 decode: bitstream -> raw mapped deltas (u32 [n]), inverse
-    predictor NOT applied.  Feeds the TPU payload decoder (decode.py).
+    predictor NOT applied.  Feeds the device payload decoder (decode.py).
     Returns (status, np.uint32 array) or None if the library is missing."""
     lib = get_lib()
     if lib is None:

@@ -7,10 +7,10 @@
 // big-endian bit window replaces the resumable state machine; suspend/resume
 // for streaming is handled by the Python host layer instead.
 //
-// Roles in the TPU framework:
+// Roles in the codec:
 //  * scalar decode path for small buffers and byte-dribble streaming;
 //  * the sequential "index scan" producing per-CDS records that unlock
-//    data-parallel payload decode on the TPU (CDS boundaries are only
+//    data-parallel payload decode on the device (CDS boundaries are only
 //    discoverable serially; everything after is parallel).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libaectpu.so aectpu_native.cpp
@@ -469,7 +469,7 @@ class Unpredictor {
 
 // ---------------------------------------------------------------------------
 // Structural scan: validate one RSI and (optionally) emit per-block payload
-// records for the device (TPU) entropy decoder (libaec_tpu/ops/bitunpack.py).
+// records for the device entropy decoder (libaec_tpu/ops/bitunpack.py).
 // The record is everything the data-parallel phase needs to decode one
 // output block without re-walking the bitstream serially.
 // ---------------------------------------------------------------------------
@@ -615,7 +615,7 @@ static bool scan_one_rsi(Cursor& bits, const Params& p, BlockRecSink* rec,
 // Truncation semantics match the reference: decode proceeds until input bits
 // or output capacity run out, whole samples only.
 // emit_deltas: skip the inverse predictor and write raw native-endian
-// uint32 mapped deltas -- phase-1 output for the TPU payload decoder
+// uint32 mapped deltas -- phase-1 output for the device payload decoder
 // (libaec_tpu/decode.py), which runs the inverse predictor as a lane-
 // parallel scan across RSIs.
 static int decode_core(const InputView& input, uint64_t start_bit,
@@ -955,7 +955,7 @@ int aectpu_scan_rsis(const uint8_t* in, size_t in_len, uint64_t start_bit,
     return AEC_OK;
 }
 
-// Phase-1 of the device (TPU) decode: walk the stream from start_bit (an
+// Phase-1 of the device decode: walk the stream from start_bit (an
 // RSI boundary; 0 for the stream head) and emit one payload record per
 // output block for every complete, device-decodable RSI.  The caller
 // provides arrays of max_rsis * rsi records; *n_rsis_out receives the

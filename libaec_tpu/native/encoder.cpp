@@ -4,7 +4,7 @@
 // /root/reference/src/encode.c:467-754): one forward loop over blocks with
 // a 64-bit accumulator emitter, the option search expressed exactly as the
 // oracle-validated formulations in libaec_tpu/ops/{options,zeroruns,
-// fields,preprocess}.py.  Roles in the TPU framework:
+// fields,preprocess}.py.  Roles in the codec:
 //   * low-latency encode for small buffers (the device pipeline wins only
 //     once dispatch overhead amortises);
 //   * the encode half of the C-ABI compatibility layer, so non-Python
@@ -844,7 +844,7 @@ int aectpu_encode(const uint8_t* in, size_t in_len, uint8_t* out,
 // otherwise independent: predictor reference and zero-run state reset at
 // each RSI, encode.c:252-254, 649-655).  A final parallel stitch
 // shift-ORs the per-RSI substreams at their exact bit offsets -- the same
-// offset-prefix-sum assembly the TPU mesh encoder uses (parallel/dist.py),
+// offset-prefix-sum assembly the mesh encoder uses (parallel/dist.py),
 // here over threads instead of chips.  Windowed to bound memory.
 int aectpu_encode_parallel(const uint8_t* in, size_t in_len, uint8_t* out,
                            size_t out_cap, size_t* out_written,

@@ -86,10 +86,9 @@ def _shift_window_right(xp, win, sh):
 def _shift_right_words_var(xp, arr, o, max_o):
     """Shift u32 windows [R, W] right by per-row o words, zero-filling.
 
-    TPU-friendly: per-row dynamic word offsets are applied as a binary
-    decomposition of o -- log2(max_o) static pad/slice shifts gated by
-    elementwise selects -- instead of a lane gather (take_along_axis lowers
-    to a serial per-lane gather on TPU and dominated the whole encode)."""
+    Per-row dynamic word offsets are applied as a binary decomposition of
+    o -- log2(max_o) static pad/slice shifts gated by elementwise selects
+    -- instead of a per-row gather (take_along_axis)."""
     u32 = xp.uint32
     W = arr.shape[1]
     b = 0
@@ -107,7 +106,7 @@ def _shift_right_words_var(xp, arr, o, max_o):
 
 def pack_fields_grouped(B, widths, values, bit0, local_words, nwords,
                         group=64):
-    """Scatter-free bit assembly (the TPU path).
+    """Scatter-free bit assembly (the device path).
 
     widths/values: u32 [NB, S] per-block field grids in stream order;
     bit0: starting bit offset in [0, 8); local_words: static words per block
@@ -126,9 +125,6 @@ def pack_fields_grouped(B, widths, values, bit0, local_words, nwords,
 
     Returns (words u32 [nwords], total_bits u32 incl. bit0).
     """
-    import jax
-    import jax.numpy as jnp
-
     xp = B.xp
     u32 = xp.uint32
     NB, S = widths.shape
@@ -158,21 +154,10 @@ def merge_block_windows(B, win, block_bits, bit0, local_words, nwords,
                         group=64):
     """Stages B+C of the grouped packer: merge per-block bit windows
     (win u32 [NB, local_words+1], front pad word included; block_bits u32
-    [NB]) into the packed word stream.  Shared by the XLA stage-A path and
-    the Pallas encode kernel (which produces the windows on-chip)."""
-    import jax
-    import jax.numpy as jnp
-
+    [NB]) into the packed word stream."""
     xp = B.xp
     u32 = xp.uint32
     NB = win.shape[0]
-
-    # windows may arrive wider than the payload needs (the Pallas encode
-    # kernel zero-pads to the pair-pre-pack width 64); drop the dead words
-    # so the doubling tree doesn't carry them into widths that overrun the
-    # final scan's buffer
-    if win.shape[1] > local_words + 1:
-        win = win[:, : local_words + 1]
 
     # pad block count to a multiple of `group` with empty windows
     NBp = -(-NB // group) * group
@@ -234,36 +219,15 @@ def merge_groups_scan(B, win, lens, bit0, nwords, unroll=None):
     # scanned windows when this runs inside shard_map
     buf = jnp.zeros(nwords, dtype=jnp.uint32) + (win_shifted[0, 0]
                                                  & jnp.uint32(0))
-    # unrolling amortises the TPU while-loop's per-iteration overhead
-    # (~4 us/step measured), which dominates this latency-bound stage.
-    # (Tried and rejected: K interleaved chains into private buffers --
-    # the extra zero-init + OR-merge traffic cost more than it hid.)
+    # unrolling amortises the while-loop's per-iteration overhead, which
+    # dominates this latency-bound stage.
     if unroll is None:
         unroll = 8 if win_shifted.shape[0] % 8 == 0 else 1
     elif win_shifted.shape[0] % unroll != 0:
         unroll = 1
-    buf, _ = jax.lax.scan(body, buf, (win_shifted, gofs), unroll=unroll)
+    with jax.named_scope("merge_scan"):
+        buf, _ = jax.lax.scan(body, buf, (win_shifted, gofs), unroll=unroll)
     return buf, total_bits
-
-
-def merge_block_windows_pallas(B, win, block_bits, bit0, local_words,
-                               nwords, group=64, interpret=False):
-    """Stage B in a Pallas kernel (kernels/merge_pallas.py), stage C via the
-    XLA group scan.  Bit-identical to merge_block_windows.  (A stage-C
-    kernel that DMA-placed each group window at its dynamic word offset was
-    tried and abandoned: Mosaic requires HBM DMA slices to be 1024-word
-    tile-aligned in both offset and shape.)"""
-    from ..kernels.merge_pallas import merge_to_groups_pallas
-
-    xp = B.xp
-    NB = win.shape[0]
-    NBp = -(-NB // group) * group
-    if NBp != NB:
-        win = xp.pad(win, ((0, NBp - NB), (0, 0)))
-        block_bits = xp.pad(block_bits, (0, NBp - NB))
-    gwin, glens = merge_to_groups_pallas(win, block_bits, local_words, group,
-                                         interpret=interpret)
-    return merge_groups_scan(B, gwin, glens, bit0, nwords)
 
 
 def words_to_bytes(xp, words):

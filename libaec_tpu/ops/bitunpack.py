@@ -1,10 +1,10 @@
-"""Device entropy decode: data-parallel CDS payload parsing on TPU.
+"""Device entropy decode: data-parallel CDS payload parsing.
 
 Phase 2 of the two-phase decode (decode.py): the native structural scan
 (native.scan_blocks) walks the stream once and emits one tiny record per
 output block — (payload offset, LSB-region offset, kind|k|ref, reference
 sample).  This module then decodes every block payload in parallel on the
-VPU, replacing the reference decoder's sequential hot loop
+device, replacing the reference decoder's sequential hot loop
 (/root/reference/src/decode.c:222-340 bit readers, :423-502 m_split,
 :560-616 m_se, :518-558 m_zero_block):
 
@@ -22,7 +22,7 @@ VPU, replacing the reference decoder's sequential hot loop
   * Zero-run blocks cost nothing: their deltas are the where() default.
 
 Everything after the single [NB, Wf] window fetch is dense elementwise /
-reduction work — no data-dependent gathers, which TPUs lower poorly.
+reduction work, with no data-dependent gathers.
 
 Output is the mapped-delta tensor consumed by ops/unpredict.py.
 
@@ -56,7 +56,7 @@ def max_fs_bits(cfg):
 
 
 def swap32(w):
-    """u32 byteswap, expressible on the VPU (shifts + masks only).
+    """u32 byteswap from shifts and masks only.
 
     The native scan memcpys payload windows RAW (host byte order); the
     big-endian word interpretation every parse below relies on is
@@ -75,8 +75,7 @@ def swap32(w):
             | ((w >> u32(8)) & u32(0xFF00)) | (w >> u32(24)))
 
 
-def decode_blocks(cfg, win, fs_bit, lsb_rel, meta, ref_sample,
-                  use_pallas=False, interpret=False):
+def decode_blocks(cfg, win, fs_bit, lsb_rel, meta, ref_sample):
     """Decode all block payloads.  win: u32 [NB, Wf] per-block payload
     windows -- the Wf stream words from each payload's word, memcpy'd RAW
     by the native scan (no device-side gather; the big-endian byteswap
@@ -84,18 +83,13 @@ def decode_blocks(cfg, win, fs_bit, lsb_rel, meta, ref_sample,
     the payload start within window word 0, lsb_rel the LSB region's
     offset in bits relative to the payload start.
     Returns mapped deltas u32 [NB, block_size]."""
-    if use_pallas:
-        from ..kernels.decode_pallas import decode_payload_pallas
-
-        return decode_payload_pallas(cfg, win, fs_bit, lsb_rel, meta,
-                                     ref_sample, interpret=interpret)
     val, fs = _decode_payload_xla(cfg, win, fs_bit, lsb_rel, meta)
     return compose_blocks(cfg, val, fs, meta, ref_sample)
 
 
 def _decode_payload_xla(cfg, win, fs_bit, lsb_rel, meta):
-    """XLA formulation of the payload parse (kernels/decode_pallas.py is
-    the fused VMEM version).  Returns (val, fs) u32 [NB, bs]: composed
+    """XLA formulation of the payload parse.  Returns (val, fs) u32
+    [NB, bs]: composed
     split/uncomp/zero deltas and raw FS values (the SE codes)."""
     u32 = jnp.uint32
     i32 = jnp.int32

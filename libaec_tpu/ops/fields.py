@@ -8,8 +8,8 @@ representation: a field of width w holds its value in the w low bits
 slots.  ops/bitpack.py turns the flat field list into packed bytes.
 
 Layout per block: three lanes of block_size slots each, flattened in order
-(S = 3 * block_size) -- built with stack+reshape, which lowers to cheap
-layout ops on TPU (unaligned concatenates do not):
+(S = 3 * block_size) -- built with stack+reshape rather than unaligned
+concatenates:
   lane 0 (header): slot 0 = option ID (id_len bits, id_len+1 for the
       low-entropy ids), slot 1 = reference sample, rest zero-width
   lane 1 (mid):    per-sample FS part (split), raw samples (uncomp),

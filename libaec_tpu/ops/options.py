@@ -1,11 +1,11 @@
-"""Per-block code-option search, vectorised for TPU.
+"""Per-block code-option search, vectorised over blocks.
 
 The reference finds the optimal Rice split position k with a warm-started
 hill-descent per block (assess_splitting_option,
 /root/reference/src/encode.c:329-410), chaining state->k across the whole
 stream.  That serial dependency is the main obstacle to data-parallel encode.
 
-TPU-first reformulation:
+Data-parallel reformulation:
   1. Evaluate the CDS length L(k) for *all* candidate k in one vectorised
      sweep (<=30 candidates; the sweep is a handful of reductions per block).
   2. Express one block's warm-start walk as a function f_b : k_prev -> k_min
@@ -149,8 +149,8 @@ def chain_k(B, maps, k_init):
 
 
 def _chain_k_tiled(B, maps, k_init, tile=64):
-    """TPU k-chain: big lane-wise gathers (map composition over the 32-value
-    domain) are slow on the VPU, so the chain is restructured as
+    """Tiled k-chain: big gathers (map composition over the 32-value
+    domain) over every block are costly, so the chain is restructured as
 
       1. per-tile map totals via a `tile`-step scan (small gathers),
       2. cross-tile prefix composition via log-doubling over [NT, 32],

@@ -1,6 +1,6 @@
 """Unit-delay predictor + sign mapper (the CCSDS 121 pre/post-processor).
 
-TPU-first design: unlike the reference's serial scan
+Data-parallel design: unlike the reference's serial scan
 (preprocess_unsigned/preprocess_signed, /root/reference/src/encode.c:235-311),
 the forward Δ-map only depends on (x[i], x[i-1]); with the shifted input
 materialised it is a fully parallel elementwise map over [n_rsi, S].
@@ -18,8 +18,7 @@ def delta_map_unsigned(xp, x, xmax):
     Semantics of encode.c:255-269.
     """
     u32 = xp.uint32
-    # shift-right-by-one with edge replication; jnp.pad compiles to cheap
-    # lane ops on TPU where an unaligned concatenate does not
+    # shift-right-by-one with edge replication
     xprev = xp.pad(x, ((0, 0), (1, 0)), mode="edge")[:, :-1]
     ge = x >= xprev
     D = xp.where(ge, x - xprev, xprev - x)

@@ -13,6 +13,15 @@ samples and the byte layout.
 import jax
 import jax.numpy as jnp
 
+# Scan steps per loop iteration.  XLA on a GPU runs each while-loop
+# iteration as a host round trip plus a few kernel launches, so the cost of
+# the 16,383-step scan of the bench config follows the iteration count:
+# on an H100, 64 steps per iteration made the 512-RSI decode chunk ~4.5x
+# faster than 8, but its compile (plus first call) rose from ~0.5 s to
+# ~12.5 s, paid once per decode program shape unless the compile cache
+# holds it; 256 gained little more at 2.3x that compile time (PERF.md).
+SCAN_UNROLL = 64
+
 
 def unpredict_rsis(cfg, deltas):
     """deltas: u32 [n_rsi, S] mapped prediction residuals (first sample of
@@ -46,7 +55,7 @@ def unpredict_rsis(cfg, deltas):
             nxt = jnp.where(half <= lim, last + zig, esc)
             return nxt, nxt
 
-        _, rest = jax.lax.scan(step, state0, deltas[:, 1:].T, unroll=8)
+        _, rest = jax.lax.scan(step, state0, deltas[:, 1:].T, unroll=SCAN_UNROLL)
         out = jnp.concatenate([state0[:, None], rest.T], axis=1)
         return out.astype(u32)
 
@@ -60,7 +69,7 @@ def unpredict_rsis(cfg, deltas):
         nxt = jnp.where(half <= (mask ^ last), last + zig, mask ^ d)
         return nxt, nxt
 
-    _, rest = jax.lax.scan(step, state0, deltas[:, 1:].T, unroll=8)
+    _, rest = jax.lax.scan(step, state0, deltas[:, 1:].T, unroll=SCAN_UNROLL)
     return jnp.concatenate([state0[:, None], rest.T], axis=1)
 
 
@@ -70,8 +79,8 @@ def samples_to_bytes_device(cfg, samples):
 
     Returns the output as packed little-endian u32 *words* whenever the
     total byte count divides by 4 (always true for whole RSIs): building
-    words arithmetically keeps everything in 32-bit VPU registers, where
-    u8 stacking pays relayout passes.  The host views the fetched buffer
+    words arithmetically keeps everything in 32-bit lanes instead of u8
+    stacking and relayout.  The host views the fetched buffer
     as bytes (np.view(uint8)); callers needing device-side u8 get it via
     the bitcast fallback."""
     u32 = jnp.uint32

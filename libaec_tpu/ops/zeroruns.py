@@ -7,7 +7,7 @@ a run is emitted when a non-zero block arrives, at the end of the RSI
 (blocks_dispensed % 64 == 0), with runs > 4 at a segment/RSI end collapsing
 to the ROS (remainder-of-segment) marker.
 
-TPU-first: runs are computed combinatorially per RSI row.  A run's CDS is
+Data-parallel: runs are computed combinatorially per RSI row.  A run's CDS is
 attributed to its *last* zero block, which in stream order lands exactly
 where the reference emits it (before the triggering non-zero block's CDS).
 """

@@ -22,14 +22,11 @@ from functools import partial
 import numpy as np
 
 
-def _encode_shard_core(B, cfg, nb, x, k_init, axis_name, use_pallas=False):
+def _encode_shard_core(B, cfg, nb, x, k_init, axis_name):
     """Runs inside shard_map: x is this shard's RSI rows.
 
-    use_pallas routes phase 2 through the fused encode kernel + VMEM tree
-    merge (the single-chip fast path, ~3x the XLA merge per DESIGN.md §2);
-    phase 1 -- the shard's total k-map for the cross-shard chain -- always
-    runs on the XLA ops (the kernel computes a map too, but only applies
-    it; the chain needs all 32 entries gathered across shards)."""
+    Phase 1 computes the shard's total k-map for the cross-shard chain;
+    phase 2 runs the single-chip pipeline with the exact incoming k."""
     import jax
     import jax.numpy as jnp
 
@@ -84,25 +81,12 @@ def _encode_shard_core(B, cfg, nb, x, k_init, axis_name, use_pallas=False):
     # phase 2: full pipeline with the exact incoming k, local pack at bit 0
     worst = worst_case_bits_per_block(cfg)
     local_words = (worst + 31) // 32 + 1
-    if use_pallas:
-        from ..kernels import encode_pallas as _ep
-        from ..kernels import merge_pallas as _mp
-
-        # same sizing as the single-chip fast path (_jax_chunk_fn)
-        pgroup = 512
-        pg_out = _mp.group_window_words(local_words, pgroup) + 1
-        pnwords = (NB * worst + 8) // 32 + pg_out + 2
-        win, bbits, k_out = _ep.encode_chunk_fields_pallas(
-            cfg, x, k_in_shard)
-        words, total_bits = bitpack.merge_block_windows_pallas(
-            B, win, bbits, 0, local_words, pnwords, pgroup)
-    else:
-        w, v, k_out = pipeline_fields(B, cfg, x, nb, k_in_shard)
-        gw1 = 64 * (local_words + 1) + 1
-        nwords = (NB * worst + 8) // 32 + gw1 + 2
-        words, total_bits = bitpack.pack_fields_grouped(
-            B, w.reshape(NB, -1), v.reshape(NB, -1), 0, local_words,
-            nwords, 64)
+    w, v, k_out = pipeline_fields(B, cfg, x, nb, k_in_shard)
+    gw1 = 64 * (local_words + 1) + 1
+    nwords = (NB * worst + 8) // 32 + gw1 + 2
+    words, total_bits = bitpack.pack_fields_grouped(
+        B, w.reshape(NB, -1), v.reshape(NB, -1), 0, local_words,
+        nwords, 64)
 
     # global bit offsets via all_gather + exclusive prefix sum
     lens = jax.lax.all_gather(total_bits, axis_name)  # [S]
@@ -117,46 +101,26 @@ def _encode_shard_core(B, cfg, nb, x, k_init, axis_name, use_pallas=False):
             k_out.reshape(1))
 
 
-def make_mesh_encoder(cfg, n_rsi_per_shard, mesh, axis_name="data",
-                      use_pallas=None):
+def make_mesh_encoder(cfg, n_rsi_per_shard, mesh, axis_name="data"):
     """Returns a jitted shard_map'ed encode step over the mesh.
 
     Input: samples u32 [n_shards * n_rsi_per_shard, samples_per_rsi] sharded
     on rows.  Output per shard: pre-shifted packed words, bit length, global
-    bit offset, outgoing k.
-
-    On a TPU mesh each shard runs the fused Pallas encode kernel (the
-    single-chip fast path); the XLA pipeline remains for CPU dryruns and
-    unsupported configs (use_pallas=False forces it)."""
-    import os
-
+    bit offset, outgoing k."""
     import jax
     from jax import shard_map
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
 
     from ..backend import jax_backend
 
     B = jax_backend()
     nb = cfg.rsi
 
-    if use_pallas is None:
-        from ..kernels import encode_pallas as _ep
-
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and not os.environ.get("LIBAEC_TPU_NO_PALLAS")
-            and _ep.kernel_supported(cfg, n_rsi_per_shard)
-        )
-
     fn = shard_map(
-        partial(_encode_shard_core, B, cfg, nb, axis_name=axis_name,
-                use_pallas=use_pallas),
+        partial(_encode_shard_core, B, cfg, nb, axis_name=axis_name),
         mesh=mesh,
         in_specs=(P(axis_name, None), P()),
         out_specs=(P(axis_name, None), P(axis_name), P(axis_name), P(axis_name)),
-        # pallas_call cannot declare varying-mesh-axes output metadata, so
-        # replication checking must be off on the kernel branch
-        check_vma=False,
     )
     jfn = jax.jit(fn)
 
@@ -211,8 +175,8 @@ def make_mesh_assembler(mesh, W, nwords, n_shards, axis_name="data"):
     """On-device ordered ragged assembly of per-shard packed substreams.
 
     Replaces assemble_host's host loop with a mesh program: each shard
-    all_gathers every shard's pre-shifted window (one collective over
-    ICI/DCN -- substreams are bit-ragged, so a fixed-bucket all_to_all
+    all_gathers every shard's pre-shifted window (one collective over the
+    interconnect -- substreams are bit-ragged, so a fixed-bucket all_to_all
     would still ship every boundary-straddling word; the gather keeps the
     placement exact and simple) and then builds its own contiguous slice
     of the final word stream with one clamped dynamic_slice per source
@@ -254,7 +218,6 @@ def make_mesh_assembler(mesh, W, nwords, n_shards, axis_name="data"):
         mesh=mesh,
         in_specs=(P(axis_name, None), P(axis_name)),
         out_specs=P(axis_name, None),
-        check_vma=False,
     )
     jfn = jax.jit(fn)
 

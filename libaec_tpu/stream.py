@@ -1,7 +1,7 @@
 """Streaming (zlib-style) API with aec_stream parity.
 
 The reference implements byte-dribble streaming with a resumable FSM
-(/root/reference/src/encode.c:467-707, decode.c:342-460).  The TPU design
+(reference encode.c:467-707, decode.c:342-460).  This design
 keeps suspend/resume at the host framing layer instead: input is buffered to
 whole RSIs (the format's safe cut points), coded in data-parallel batches,
 and the produced bytes are dribbled out through avail_out.  Byte output is

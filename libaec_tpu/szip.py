@@ -225,8 +225,8 @@ def sz_buffto_buff_decompress(source, param: SZCom, out_size):
 def sz_decompress_batch(sources, param: SZCom, out_sizes):
     """Decompress many independent SZ streams (the HDF5 dataset shape: one
     stream per chunk) with scan/device overlap (decode.decode_buffers_tpu):
-    the serial structural scans run on host threads while the TPU decodes
-    every stream's payloads.  No reference counterpart -- the reference is
+    the serial structural scans run on host threads while the device
+    decodes every stream's payloads.  No reference counterpart -- the reference is
     strictly one-buffer-at-a-time.  Returns a list of bytes; raises
     AecError carrying the first failing stream's status."""
     from .decode import decode_buffers_tpu

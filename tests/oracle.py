@@ -2,7 +2,7 @@
 
 The reference C library (/root/reference, built out-of-source into
 /root/repo/.refbuild) is the ground truth for golden tests: we encode/decode
-random inputs with it and assert our TPU codec produces identical bytes.
+random inputs with it and assert our codec produces identical bytes.
 
 Reference API: /root/reference/src/libaec.h:67-166.
 """

@@ -1,4 +1,4 @@
-"""Regression: the grouped (TPU) packer's per-block window must hold the
+"""Regression: the grouped (device) packer's per-block window must hold the
 widest possible CDS.  A zero run emitted mid-segment spans up to 63 blocks
 (fsval 63 -> 64-bit unary field, encode.c:574-579), which exceeds
 block_size*bits_per_sample for small blocks / narrow samples; sizing the
